@@ -1,19 +1,21 @@
 #!/usr/bin/env python
-"""Headline benchmark: class-B (1920x1088) all-intra encode frames/s/chip,
-on the production quadtree+SAO+RDOQ+SBH path (the same encoder the BD-rate
-claims use), plus lenslet-ISS encode fps and decode fps.
+"""Headline benchmark: class-B (1920x1088) all-intra encode frames/s on the
+production quadtree+SAO+RDOQ+SBH path (the same encoder the BD-rate claims
+use), plus lenslet-ISS encode fps and decode fps. Needs an NVIDIA GPU.
 
-Prints ONE JSON line:
+Prints the device (JAX platform, device kind, device count, nvidia-smi's
+card name and power limit) on one line, then ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N,
    "lenslet_iss_fps": N, "lenslet_iss_vs_baseline": N,
    "decode_fps": N, "decode_vs_baseline": N}
 
-vs_baseline values are relative to the reference HM binaries measured on
-this host (tests/golden/measured_baseline.json, BASELINE.md). Set
-BENCH_SMALL=1 for a quick smoke run (720x512, no extra metrics).
+vs_baseline values divide by the reference HM binaries timed on another
+host (tests/golden/measured_baseline.json), so they are cross-host ratios.
+Set BENCH_SMALL=1 for a quick smoke run (720x512, no extra metrics).
 """
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -21,19 +23,26 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# persistent XLA compilation cache: first-ever compile of the 1080p scan
-# programs takes minutes; all later runs (and re-runs of this bench) load
-# the executables from disk
-os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-try:
+
+def card_identity() -> str:
+    """nvidia-smi's name and power limit of every card, ';'-joined."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout
+    return "; ".join(l.strip() for l in out.splitlines() if l.strip())
+
+
+def require_gpu() -> str:
+    """The device line every result is printed under; exits without a
+    GPU (a CPU number is never reported as a device number)."""
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-except Exception:
-    pass
+    d = jax.devices()
+    if d[0].platform != "gpu":
+        raise SystemExit(f"needs an NVIDIA GPU, JAX found "
+                         f"{d[0].platform!r}")
+    return (f"device: platform={d[0].platform} kind={d[0].device_kind} "
+            f"count={len(d)} card={card_identity()}")
 
 
 def synth_class_b(w, h, seed=0):
@@ -48,24 +57,29 @@ def synth_class_b(w, h, seed=0):
 
 
 def best_of(fn, reps=3):
+    """Best wall time of fn(); fn returns the device arrays its work ends
+    in, and the clock stops only after they are ready."""
+    import jax
     best = float("inf")
     for _ in range(reps):
-        t0 = time.time()
-        fn()
-        best = min(best, time.time() - t0)
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        best = min(best, time.perf_counter() - t0)
     return best
 
 
 def main() -> None:
     from hevc_hop_tpu.models.encoder import EncoderConfig, IntraEncoder
 
+    device = require_gpu()
     small = os.environ.get("BENCH_SMALL") == "1"
     w, h = (720, 512) if small else (1920, 1088)
     nfr = 4   # DISTINCT frames, encoded via the pipelined throughput path
     frames = [synth_class_b(w, h, seed=s) for s in range(nfr)]
     enc = IntraEncoder(EncoderConfig(width=w, height=h, qp=32, sao=True))
     enc.encode_frames(frames)  # warm-up/compile every shape bucket
-    t_enc = best_of(lambda: enc.encode_frames(frames)) / nfr
+    t_enc = best_of(lambda: (enc.encode_frames(frames),
+                             enc._recon_dev)[1]) / nfr
     fps = 1.0 / t_enc
     y, cb, cr = frames[0]
 
@@ -80,7 +94,7 @@ def main() -> None:
     out = {
         "metric": "intra_encode_fps_classB",
         "value": round(fps, 4),
-        "unit": "frames/s/chip",
+        "unit": "frames/s",
         "vs_baseline": round(fps / hm_fps, 3),
     }
 
@@ -94,7 +108,8 @@ def main() -> None:
                                       mi_size=16, gt=True, search_range=32,
                                       quadtree=True, sao=True))
         henc.encode_frame(ly, lcb, lcr)
-        t_ll = best_of(lambda: henc.encode_frame(ly, lcb, lcr))
+        t_ll = best_of(lambda: (henc.encode_frame(ly, lcb, lcr),
+                                henc._recon_dev)[1])
         out["lenslet_iss_fps"] = round(1.0 / t_ll, 4)
         out["lenslet_iss_vs_baseline"] = round(
             (1.0 / t_ll) / base["hm_iss_lenslet_fps"], 3)
@@ -105,7 +120,8 @@ def main() -> None:
 
         def dec_once():
             d = Decoder()
-            d.decode_stream(stream)
+            d.decode_stream(stream)     # returns host pictures
+            return d._pics_dev
 
         dec_once()
         t_dec = best_of(dec_once)
@@ -113,6 +129,7 @@ def main() -> None:
         out["decode_vs_baseline"] = round(
             (1.0 / t_dec) / base["hm_intra_1080p_decode_fps"], 3)
 
+    print(device)
     print(json.dumps(out))
 
 

@@ -1,12 +1,12 @@
-"""hevc_hop_tpu — a TPU-native HEVC Main/Main10 encode/decode engine with
-HOP (high-order intrablock prediction) lenslet light-field tools.
+"""hevc_hop_tpu — an HEVC Main/Main10 encode/decode engine in JAX with HOP
+(high-order prediction) lenslet light-field tools.
 
-Built from scratch for TPU (JAX/XLA/Pallas/pjit). Capability reference:
-zinsayon/HEVC-HOP (HM 16.x + IT/Lisbon self-similarity + geometric-transform
-extensions). This is NOT a port: the compute path is expressed as batched,
-jittable tensor programs (dense per-depth mode evaluation, wavefront diagonal
-scheduling, matmul transforms on the MXU), with a native C++ CABAC runtime for
-the serial entropy tail.
+Capability reference: zinsayon/HEVC-HOP (HM 16.x + IT/Lisbon self-similarity
++ geometric-transform extensions). This is NOT a port: the compute path is
+expressed as batched, jittable tensor programs (dense per-depth mode
+evaluation, wavefront diagonal scheduling, integer matmul transforms) in
+plain jax.numpy/lax compiled by XLA, with a native C++ CABAC runtime for the
+serial entropy tail.
 
 Layout:
   common/    ROM tables, constants, enums         (ref: TLibCommon/TComRom, TypeDef)
@@ -14,24 +14,34 @@ Layout:
   entropy/   CABAC engine + syntax coding         (ref: TEncSbac/TDecSbac, ContextTables)
   bitstream/ NAL / RBSP / parameter sets          (ref: TComBitStream, NAL, TEncCavlc)
   models/    encoder/decoder pipelines            (ref: TEncTop/TEncGOP/TEncCu, TDecTop)
-  parallel/  mesh sharding, wavefront scheduling  (ref: WPP/tiles constructs)
+  parallel/  mesh-sharded encode                  (ref: WPP/tiles constructs)
   io/        YUV file I/O, picture hashes         (ref: TLibVideoIO, TComPicYuvMD5)
   utils/     config system, CLI                   (ref: TAppCommon/program_options_lite)
   native/    C++ runtime sources (CABAC engine)
 """
 
-__version__ = "0.1.0"
-
-# Persistent XLA compilation cache: the wavefront scan programs take
-# minutes to compile; cache them across processes (tests, CLI, bench).
 import os as _os
 
-if not _os.environ.get("HEVC_HOP_NO_COMPILE_CACHE"):
+__version__ = "0.1.0"
+
+_REPO = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+
+
+def compile_cache_dir(environ=_os.environ) -> str | None:
+    """Persistent XLA compile-cache directory to configure, or None.
+
+    The wavefront scan programs take minutes to compile, so every process
+    (tests, CLI, bench, chip smoke) shares one on-disk cache. Where
+    JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and nothing is
+    configured here (None); otherwise the cache is the fixed, git-ignored
+    <repo>/.jax_cache (a fixed path: the path is part of the cache key)."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return _os.path.join(_REPO, ".jax_cache")
+
+
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None:
     import jax as _jax
 
-    # Respect a cache dir the embedding process already configured.
-    if not _jax.config.jax_compilation_cache_dir:
-        _jax.config.update("jax_compilation_cache_dir",
-                           _os.environ.get("HEVC_HOP_COMPILE_CACHE",
-                                           "/tmp/hevc_hop_xla_cache"))
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    _jax.config.update("jax_compilation_cache_dir", _cache_dir)

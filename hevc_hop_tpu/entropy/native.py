@@ -14,6 +14,9 @@ import numpy as np
 _DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "native")
 _LIB_PATH = os.path.join(_DIR, "libhevc_hop.so")
+# every tracked input of the build (the Makefile's prerequisites)
+_SOURCES = ("cabac.cpp", os.path.join("gen", "cabac_tables.h"),
+            os.path.join("gen", "ctx_layout.h"), "Makefile")
 
 _lib = None
 
@@ -22,13 +25,20 @@ def _build() -> None:
     subprocess.run(["make", "-C", _DIR, "-s"], check=True)
 
 
+def _stale() -> bool:
+    """True when the library is missing or older than any build input."""
+    if not os.path.exists(_LIB_PATH):
+        return True
+    built = os.path.getmtime(_LIB_PATH)
+    return any(os.path.getmtime(os.path.join(_DIR, s)) > built
+               for s in _SOURCES)
+
+
 def get_lib() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    src = os.path.join(_DIR, "cabac.cpp")
-    if (not os.path.exists(_LIB_PATH)
-            or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
+    if _stale():
         _build()
     lib = ctypes.CDLL(_LIB_PATH)
     u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

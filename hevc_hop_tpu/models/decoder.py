@@ -224,6 +224,7 @@ class Decoder:
                 sao_on=int(sps.sao_enabled),
                 sbh=int(pps.sign_data_hiding))
 
+        self.last_maps = maps   # parsed syntax, for inspection
         # reconstruction structure = TRANSFORM blocks (prediction is per-TU)
         leaves = wavefront.tu_blocks_from_maps(maps.depth8, maps.tu4,
                                                w, h, sps.ctb_log2)

@@ -8,7 +8,7 @@ reference (TComSlice.cpp:366-377), full-search SS ME with causal validity
 (TEncCavlc.cpp:572-575), MI merge candidates via vps_holo_microimage_size
 (TComDataCU.cpp:2642-2712).
 
-TPU-native structure: intra + SS tournament fused into one lax.scan
+Structure: intra + SS tournament fused into one lax.scan
 wavefront (models/ss_scan.py); the native C++ serializer turns final MVs
 into skip/merge/AMVP syntax (native/cabac.cpp code_inter_cu).
 """

@@ -3,7 +3,7 @@
 Capability ref: the reference's recursive per-depth RD tournament
 (TEncCu.cpp:371 xCompressCU: evaluate merge/inter/intra at each depth,
 recurse, keep the cheaper tree, :1557 xCheckBestMode). A sequential
-tournament cannot run inside the TPU wavefront without serializing it, so
+tournament cannot run inside the batched wavefront without serializing it, so
 the tree choice is made in a *pre-pass* (SURVEY.md §7.1 "batched mode
 evaluation + bottom-up DP"): for every CU size, every block's best
 intra-vs-SS(-vs-temporal) RD cost is computed at once against the ORIGINAL

@@ -6,12 +6,13 @@ search ME over the causal area with validity filtering (TEncSearch.cpp:
 6224,6262,6320-6340), per-CU recon copied into the SS ref (TEncCu.cpp:
 870-880, TDecCu.cpp:454-476), intra/inter RD tournament (TEncCu.cpp:371).
 
-TPU-native formulation (SURVEY.md §7.1): one lax.scan over topological
-wavefront levels. Each step batches all ready CUs: 35-mode intra prediction
-AND a dense SSE cost map over every causal displacement (correlation on the
-MXU), a static z-order causality mask instead of NOT_VALID poisoning, joint
-mode selection, transform/quant/recon, scatter. The SS reference is simply
-the recon carry — no separate poisoned picture.
+Formulation (SURVEY.md §7.1): one lax.scan over topological wavefront
+levels. Each step batches all ready CUs: 35-mode intra prediction AND a
+dense SSE cost map over every causal displacement (a full-precision f32
+correlation, `sse_map`), a static z-order causality mask instead of
+NOT_VALID poisoning, joint mode selection, transform/quant/recon, scatter.
+The SS reference is simply the recon carry — no separate poisoned
+picture.
 
 Scheduling: the encoder orders blocks so every z-earlier block within the
 search reach is at a strictly earlier level (native wavefront_levels_ex,
@@ -195,6 +196,46 @@ def _gather_chains(plane, pos, n):
                  jnp.clip(cx, 0, plane.shape[1] - 1)]
 
 
+def _search_window(plane, pos, n, radius, h):
+    """[B, n+2r, n+2r] full-search windows around each block, edge-clamped
+    to the picture (rows < h, so scratch rows are never read)."""
+    wsz = n + 2 * radius
+    ry = (pos[:, 1] - radius)[:, None, None] + jnp.arange(wsz)[None, :, None]
+    rx = (pos[:, 0] - radius)[:, None, None] + jnp.arange(wsz)[None, None, :]
+    return plane[jnp.clip(ry, 0, h - 1), jnp.clip(rx, 0, plane.shape[1] - 1)]
+
+
+def sse_map(win, org):
+    """SSE of every displacement: win [B, n+2r, n+2r], org [B, n, n] ->
+    [B, 2r+1, 2r+1] float32 (dy, dx), as sum(org^2) + sum(ref^2) - 2 corr.
+
+    The two correlations run as f32 convolutions at Precision.HIGHEST:
+    the squared-sample terms reach 2^16 (8-bit) / 2^20 (10-bit), which a
+    reduced-precision pass (TF32's 10-bit significand on the GPU's tensor
+    cores) would round away. With full f32 every backend makes the same
+    displacement choices up to summation order; sums above 2^24 still
+    round, so the map is exact to a relative n^2 * 2^-23 of
+    sum(org^2) + sum(ref^2). An encoder decision only: nothing normative
+    depends on it."""
+    n = org.shape[-1]
+    wf = win.astype(jnp.float32)
+    of = org.astype(jnp.float32)
+    hi = jax.lax.Precision.HIGHEST
+
+    def corr1(wv, kv):
+        return jax.lax.conv_general_dilated(
+            wv[None, None], kv[None, None], (1, 1), "VALID",
+            precision=hi, preferred_element_type=jnp.float32)[0, 0]
+
+    corr = jax.vmap(corr1)(wf, of)
+    ones = jnp.ones((n, n), jnp.float32)
+    ref2 = jax.lax.conv_general_dilated(
+        (wf * wf)[:, None], ones[None, None], (1, 1), "VALID",
+        precision=hi, preferred_element_type=jnp.float32)[:, 0]
+    org2 = jnp.sum(of * of, axis=(1, 2))[:, None, None]
+    return org2 + ref2 - 2.0 * corr
+
+
 def _ss_search(recon, org, pos, zcur, zmaxw, rate_map, n, radius, w, h,
                zmax2n=None):
     """Masked full-search SSE cost map.
@@ -217,28 +258,8 @@ def _ss_search(recon, org, pos, zcur, zmaxw, rate_map, n, radius, w, h,
     zm = zmaxw[tyc, txc]
     mask = inb & (zm < zcur[:, None, None])
 
-    # SSE map via MXU correlation
-    wy0 = pos[:, 1] - radius
-    wx0 = pos[:, 0] - radius
-    wsz = n + 2 * radius
-    ry = wy0[:, None, None] + jnp.arange(wsz)[None, :, None]
-    rx = wx0[:, None, None] + jnp.arange(wsz)[None, None, :]
-    win = recon[jnp.clip(ry, 0, h - 1), jnp.clip(rx, 0, recon.shape[1] - 1)]
-    wf = win.astype(jnp.float32)
-    of = org.astype(jnp.float32)
-
-    def corr1(wv, kv):
-        return jax.lax.conv_general_dilated(
-            wv[None, None], kv[None, None], (1, 1), "VALID",
-            preferred_element_type=jnp.float32)[0, 0]
-
-    corr = jax.vmap(corr1)(wf, of)
-    ones = jnp.ones((n, n), jnp.float32)
-    ref2 = jax.lax.conv_general_dilated(
-        (wf * wf)[:, None], ones[None, None], (1, 1), "VALID",
-        preferred_element_type=jnp.float32)[:, 0]
-    org2 = jnp.sum(of * of, axis=(1, 2))[:, None, None]
-    sse = org2 + ref2 - 2.0 * corr  # f32: encoder decision only
+    win = _search_window(recon, pos, n, radius, h)
+    sse = sse_map(win, org)
 
     big = jnp.float32(3.0e38)
     cost = jnp.where(mask, sse + rate_map, big)
@@ -310,27 +331,8 @@ def _t_search(refp, org, pos, rate_map, n, radius, w, h):
     tx = pos[:, 0, None, None] + dr[None, None, :]
     mask = (ty >= 0) & (tx >= 0) & (ty + n <= h) & (tx + n <= w)
 
-    wy0 = pos[:, 1] - radius
-    wx0 = pos[:, 0] - radius
-    wsz = n + 2 * radius
-    ry = wy0[:, None, None] + jnp.arange(wsz)[None, :, None]
-    rx = wx0[:, None, None] + jnp.arange(wsz)[None, None, :]
-    win = refp[jnp.clip(ry, 0, h - 1), jnp.clip(rx, 0, refp.shape[1] - 1)]
-    wf = win.astype(jnp.float32)
-    of = org.astype(jnp.float32)
-
-    def corr1(wv, kv):
-        return jax.lax.conv_general_dilated(
-            wv[None, None], kv[None, None], (1, 1), "VALID",
-            preferred_element_type=jnp.float32)[0, 0]
-
-    corr = jax.vmap(corr1)(wf, of)
-    ones = jnp.ones((n, n), jnp.float32)
-    ref2 = jax.lax.conv_general_dilated(
-        (wf * wf)[:, None], ones[None, None], (1, 1), "VALID",
-        preferred_element_type=jnp.float32)[:, 0]
-    org2 = jnp.sum(of * of, axis=(1, 2))[:, None, None]
-    sse = org2 + ref2 - 2.0 * corr
+    win = _search_window(refp, pos, n, radius, h)
+    sse = sse_map(win, org)
 
     big = jnp.float32(3.0e38)
     cost = jnp.where(mask, sse + rate_map, big).reshape(b, -1)

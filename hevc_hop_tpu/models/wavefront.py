@@ -1,7 +1,7 @@
 """Wavefront scheduling: frame structure, z-addresses, availability.
 
 The reference encodes CTUs strictly sequentially (TEncSlice.cpp:1000-1130 CTU
-loop -> recursive z-order CU processing). On TPU we exploit the dependency
+loop -> recursive z-order CU processing). Here we exploit the dependency
 structure HEVC's WPP was designed around: blocks whose reference chains only
 touch finished blocks are mutually independent, so the schedule groups them
 into topological levels consumed by the single-program scan

@@ -10,7 +10,7 @@ for luma and both chroma planes.
 
 Blocks on the same topological level are mutually independent regardless of
 size, so a step handles e.g. all ready 32x32, 16x16 and 8x8 TUs at once as
-three static-shape sub-batches — the TPU-native replacement for the
+three static-shape sub-batches — the batched replacement for the
 reference's strictly sequential CU recursion (TEncCu.cpp:371).
 """
 from __future__ import annotations

@@ -1,13 +1,13 @@
 // Native CABAC runtime: arithmetic engine + full HEVC slice-data syntax
 // (CU quadtree, intra modes, transform tree, residual coding) in both
-// directions, operating over dense frame-granular maps so the TPU side
+// directions, operating over dense frame-granular maps so the device side
 // (JAX) works on whole-frame tensors and this layer handles the serial bits.
 //
 // Capability reference: TEncBinCoderCABAC.cpp / TDecBinCoderCABAC.cpp
 // (engine), TEncSbac.cpp:1829 codeCoeffNxN / TDecSbac.cpp (residual syntax),
 // TEncCu.cpp:1019 xEncodeCU / TDecCu.cpp (CU syntax). This is a fresh
 // implementation from the H.265 spec (7.3.8.x, 9.3.x) with an array-based
-// interface designed for batched TPU reconstruction; it is not a port.
+// interface designed for batched device reconstruction; it is not a port.
 //
 // Build: make -C hevc_hop_tpu/native   -> libhevc_hop.so (ctypes)
 

@@ -2,8 +2,8 @@
 
 Capability ref: TComPicYuvMD5.cpp:141-166 (compChecksum/calcChecksum).
 The checksum hash type (H.265 D.3.19 type 2) is a position-masked byte sum
-— a pure reduction, so it runs on the TPU and only 4 bytes per plane ever
-cross the host link (MD5 would force a full-frame device->host transfer).
+— a pure reduction, so it runs on the device and only 4 bytes per plane
+ever cross to the host (MD5 would force a full-frame device->host transfer).
 """
 from __future__ import annotations
 

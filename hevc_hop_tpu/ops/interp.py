@@ -4,7 +4,7 @@ Capability ref: TComInterpolationFilter.cpp:49-87 (coefficient tables) and
 the filter<N> template at :174 — two-stage separable filtering with 14-bit
 intermediate precision (IF_INTERNAL_PREC), headroom-aware shifts/offsets.
 
-TPU-native formulation: the per-block fractional phase selects a weight
+Formulation: the per-block fractional phase selects a weight
 vector (a gather from the coefficient table), and both separable stages run
 as batched tensordot-style contractions over static window tensors. Running
 the two-stage path unconditionally (phase 0 = [0, 64, 0, 0]) is bit-exact

@@ -281,7 +281,7 @@ def predict_mode(chain_u: jnp.ndarray, modes: jnp.ndarray, n: int,
 
 
 # ---------------------------------------------------------------------------
-# SATD (Hadamard) cost for RMD, as matmuls on the MXU.
+# SATD (Hadamard) cost for RMD, as exact s32 matmuls.
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)

@@ -10,11 +10,19 @@ quantizer used by both and by the decoder-side dequant.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from hevc_hop_tpu.common import rom
 from hevc_hop_tpu.common.types import COEF_MIN, COEF_MAX
+
+
+def floor_log2(v: jnp.ndarray) -> jnp.ndarray:
+    """Exact floor(log2(v)) of int32 v >= 1 (bit length - 1), by count of
+    leading zeros: an encoder rate estimate then never depends on a
+    backend's float log2."""
+    return 31 - jax.lax.clz(v.astype(jnp.int32))
 
 
 def quant(coef: jnp.ndarray, qp: int, log2_size: int, bit_depth: int = 8,
@@ -116,8 +124,8 @@ def sbh_adjust(lev: jnp.ndarray, scan_id: jnp.ndarray,
         tr_shift = rom.MAX_TR_DYNAMIC_RANGE - bit_depth - log2
         lamc = np.float32(lam * (4.0 ** tr_shift))
         gb = lambda v: jnp.where(
-            v > 0, 1.0 + 2.0 * jnp.floor(
-                jnp.log2(jnp.maximum(v, 1).astype(jnp.float32))), -1.5)
+            v > 0, 1.0 + 2.0 * floor_log2(jnp.maximum(v, 1)).astype(
+                jnp.float32), -1.5)
         r_cur = gb(a)
         r_dec = gb(a - 1)
         r_inc = gb(a + 1)

@@ -1,4 +1,4 @@
-"""Rate-distortion optimized quantization (RDOQ), vectorized for TPU.
+"""Rate-distortion optimized quantization (RDOQ), vectorized over TU batches.
 
 Capability ref: TComTrQuant::xRateDistOptQuant (TComTrQuant.cpp:1489),
 xGetCodedLevel (:260h), xGetICRate, last-position estimation and the
@@ -6,7 +6,7 @@ coefficient-group zeroing pass; rate estimates use the FAST_BIT_EST
 fractional-bit table (ContextModel.cpp:106 m_entropyBits) with the slice's
 *initial* context states.
 
-TPU-native restructuring (not a port): the reference walks coefficients
+Batched restructuring (not a port): the reference walks coefficients
 sequentially in reverse scan order, evolving (c1, c1Idx, c2Idx, rice)
 greedily from each *chosen* level. Here a whole batch of TUs is processed
 at once: the context trajectories are derived from the pre-decision
@@ -26,6 +26,7 @@ import numpy as np
 
 from hevc_hop_tpu.common import rom
 from hevc_hop_tpu.entropy import ctx_layout, tables
+from hevc_hop_tpu.ops import quant
 
 SCALE = 32768.0  # rate unit: 2^15 per bit (SCALE_BITS)
 _INF = np.float32(1e30)
@@ -195,8 +196,7 @@ def _level_rate(lev, one_ctx_bits0, one_ctx_bits1, abs_ctx_bits0,
     r_short = ((sym >> rice) + 1 + rice).astype(jnp.float32) * SCALE
     # escape: len = floor(log2(cn + 2^rice)); bits = (3+len+1-rice) + len
     cn = jnp.maximum(sym - thr, 0) + (1 << rice)
-    ln = jnp.floor(jnp.log2(jnp.maximum(cn, 1).astype(jnp.float32))
-                   + 1e-6).astype(jnp.int32)
+    ln = quant.floor_log2(jnp.maximum(cn, 1))
     r_esc = (3 + ln + 1 - rice + ln).astype(jnp.float32) * SCALE
     r_rem = jnp.where(sym < thr, r_short, r_esc)
     rate = jnp.full(lev.shape, SCALE, jnp.float32)  # sign bit

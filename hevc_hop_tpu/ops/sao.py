@@ -4,7 +4,7 @@ Capability ref: TComSampleAdaptiveOffset.cpp (offsetBlock:365 EO0/90/135/45
 + BO, SAOProcess:709) and TEncSampleAdaptiveOffset.cpp (getStatistics:305,
 decideBlkParams:762, mode RDO new/merge 569,706).
 
-TPU-native formulation: classification is a handful of shifted comparisons
+Formulation: classification is a handful of shifted comparisons
 over the whole plane; the per-CTU type/offset fields are gathered per pixel,
 so the apply is one fused elementwise pass. Encoder statistics are dense
 per-category difference sums tile-reduced per CTU; the (tiny) per-CTU RDO

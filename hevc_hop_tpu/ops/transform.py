@@ -1,9 +1,11 @@
-"""Forward/inverse integer transforms as batched MXU matmuls.
+"""Forward/inverse integer transforms as batched s32 matmuls.
 
 Replaces the reference's scalar partial-butterfly C++ loops
 (TComTrQuant.cpp:400-780 partialButterfly{4,8,16,32} + inverses and the 4x4
-DST) with dense [B, N, N] x [N, N] integer matmuls — the natural TPU mapping:
-a whole frame's worth of same-size TUs is transformed in one batched op.
+DST) with dense [B, N, N] x [N, N] integer matmuls: a whole frame's worth
+of same-size TUs is transformed in one batched op. The products stay s32
+with s32 accumulation (exact); they must never move to f32, whose 24-bit
+significand cannot hold the inverse transform's second-stage partial sums.
 
 Bit-exactness: all math is int32 with the H.265 8.6.4 shift/round/clip
 conventions. The *inverse* transform (normative, used by the decoder and the

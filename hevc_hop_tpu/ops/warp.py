@@ -6,7 +6,7 @@ from 4 corner offset vectors (calcParamProjective:807 / calcParamBilinear:862)
 and inverse-maps every pixel of the central WxH block with bilinear
 interpolation (ProjectiveTransform:904), clamped to the NSS window.
 
-TPU-native formulation: corner-candidate sets are batched — a single
+Formulation: corner-candidate sets are batched — a single
 gather+weighted-sum evaluates all warped blocks at once. The affine
 restriction (IT_GT_AFFINE, TypeDef.h:212: only 3 corner vectors coded,
 BL derived) makes every map coordinate an EXACT RATIONAL with denominator

@@ -18,7 +18,7 @@ over a jax mesh ("frame", "band"):
                scan (asserted by tests/test_multichip.py and
                __graft_entry__.dryrun_multichip).
 
-Capability ref: this is the TPU-native replacement for the reference's
+Capability ref: this is the batched replacement for the reference's
 bitstream-level parallelization seams (WPP rows / tiles, SURVEY.md §2.5);
 HM itself is single-threaded (TEncSlice.cpp:844).
 """
@@ -117,10 +117,7 @@ def banded_encode_fn(mesh: Mesh, sizes: tuple, qp: int, qp_c: int,
     from hevc_hop_tpu.models.wavefront_scan import (_enc_plane_ys,
                                                     _block_idx)
     from hevc_hop_tpu.models import partition as _part
-    try:
-        from jax import shard_map
-    except ImportError:                      # older jax
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     hcb = hb // 2
     hcoff = hcb + 2 + 16

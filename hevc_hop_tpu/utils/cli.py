@@ -94,8 +94,9 @@ def encode_main(argv: list) -> int:
             hash_type=_hash_type_cfg(v["hash_type"]))
         enc = IntraEncoder(cfg)
         streams, recons = [], []
-        for f in enc.encode_frames([tuple(np.asarray(p, np.int32)
-                                          for p in fr) for fr in frames]):
+        # each frame's recon is read while it is the encoder's latest
+        for f in enc.iter_encode([tuple(np.asarray(p, np.int32)
+                                        for p in fr) for fr in frames]):
             streams.append(f)
             recons.append(enc.recon_yuv)
         stream = b"".join(streams)

@@ -3,7 +3,7 @@
 Capability ref: TAppCommon/program_options_lite (program_options_lite.h:
 `("Name,-short", storage, default, "desc")` registry; cfg files use
 `Key : value  # comment` lines, CLI overrides cfg). This is a fresh
-implementation of the same surface for the TPU engine's apps
+implementation of the same surface for this engine's apps
 (utils/cli.py), so HM users can bring their option names along.
 """
 from __future__ import annotations

@@ -13,8 +13,9 @@ from hevc_hop_tpu.models.decoder import Decoder
 from hevc_hop_tpu.parallel import shard_encode
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_banded_encode_bit_identical():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 devices")
     mesh = shard_encode.make_mesh(8)           # (2 frames, 4 bands)
     fpar, bpar = mesh.devices.shape
     w, h = 64, bpar * 32

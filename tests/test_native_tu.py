@@ -2,6 +2,7 @@
 import random
 
 import numpy as np
+import pytest
 
 from hevc_hop_tpu.entropy import ctx_layout, native
 
@@ -68,3 +69,24 @@ def test_slice_roundtrip_with_tu_splits():
         np.testing.assert_array_equal(dec.cbf4_y, maps.cbf4_y)
         np.testing.assert_array_equal(dec.coef_y, maps.coef_y)
         np.testing.assert_array_equal(dec.coef_cb, maps.coef_cb)
+
+
+@pytest.mark.parametrize("touched", list(native._SOURCES) + [None])
+def test_native_library_stale_on_any_build_input(touched, tmp_path,
+                                                 monkeypatch):
+    """A library older than cabac.cpp, a generated header or the Makefile
+    is rebuilt, never loaded."""
+    import os
+    for s in native._SOURCES:
+        (tmp_path / s).parent.mkdir(exist_ok=True)
+        (tmp_path / s).write_text("x")
+        os.utime(tmp_path / s, (1000, 1000))
+    lib = tmp_path / "libhevc_hop.so"
+    monkeypatch.setattr(native, "_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_LIB_PATH", str(lib))
+    assert native._stale()          # missing
+    lib.write_text("so")
+    os.utime(lib, (2000, 2000))
+    if touched is not None:
+        os.utime(tmp_path / touched, (3000, 3000))
+    assert native._stale() == (touched is not None)

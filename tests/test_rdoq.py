@@ -88,3 +88,25 @@ def test_rdoq_zero_input():
         jnp.zeros((4, 8, 8), jnp.int32), jnp.zeros(4, jnp.int32), qp=32,
         log2_size=3, bit_depth=8, c_idx=0, init_type=2, lam=10.0))
     assert not lev.any()
+
+
+@pytest.mark.parametrize("formula", ["quant_sbh_rate", "rdoq_escape_len"])
+def test_floor_log2_is_exact_bit_length(formula):
+    """The integer bit length that replaced floor(log2(float)) in the SBH
+    rate proxy (ops/quant.py) and the RDOQ escape length (ops/rdoq.py) is
+    exact, and agrees with the old float formula except where that formula
+    misrounded next to a power of two."""
+    v = np.arange(1, (1 << 20) + 1, dtype=np.int32)
+    new = np.asarray(quant.floor_log2(jnp.asarray(v)))
+    exact = np.array([int(x).bit_length() - 1 for x in v])
+    np.testing.assert_array_equal(new, exact)
+    lg = jnp.log2(jnp.asarray(v).astype(jnp.float32))
+    old = np.asarray(jnp.floor(lg if formula == "quant_sbh_rate"
+                               else lg + 1e-6).astype(jnp.int32))
+    bad = np.nonzero(old != exact)[0]
+    assert len(bad) <= 4
+    assert (np.abs(old[bad] - exact[bad]) == 1).all()
+    near = np.abs(v[bad] - (1 << exact[bad]).astype(np.int64))
+    near = np.minimum(near, np.abs((2 << exact[bad]).astype(np.int64)
+                                   - v[bad]))
+    assert (near <= 1).all(), v[bad]
